@@ -1,12 +1,15 @@
-"""Sustained App soak on the REAL TPU: a moving robot tracked over 80
-frames through the production loop (pipelined), detections on the wire."""
+"""Sustained App soak on the GPU: a moving robot tracked over 80 frames
+through the production loop (pipelined), detections on the wire.
+
+    python experiments/soak_app.py
+"""
 import sys, threading, time, tempfile
 from pathlib import Path
 
 import numpy as np
 import yaml
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 from vision_processor_tpu.models.camera import CameraModel
 from vision_processor_tpu.net.geometry_io import geometry_from_dict

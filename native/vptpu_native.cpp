@@ -3,7 +3,7 @@
 //
 // The reference's native layer exists to feed its GPU pipeline with
 // zero-copy camera frames and to run the SSL multicast bus off the hot path
-// (reference src/driver/*, src/udpsocket.*). The TPU build keeps the same
+// (reference src/driver/*, src/udpsocket.*). This build keeps the same
 // split: XLA owns the device compute, and this library owns the
 // latency-sensitive host I/O. Exposed as a plain C ABI for ctypes.
 //

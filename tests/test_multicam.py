@@ -1,5 +1,5 @@
 """Multi-camera tests: vmap batch on one device and shard_map over the
-virtual 8-device CPU mesh, including the ICI tracking exchange."""
+virtual 8-device CPU mesh, including the mesh tracking exchange."""
 import jax
 import jax.numpy as jnp
 import numpy as np

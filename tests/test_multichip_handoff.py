@@ -1,7 +1,7 @@
 """CPU-mesh mirror of the driver's multichip handoff dry run: a robot
 crossing from camera 0's area into camera 1's must be matched through the
 TRACKED path on camera 1, seeded purely by the per-frame all_gather
-tracking exchange over the device mesh (the ICI analogue of the
+tracking exchange over the device mesh (the analogue of the
 reference's multicast tracking input, reference src/udpsocket.cpp:204-256).
 """
 import sys

@@ -32,8 +32,7 @@ def test_staggered_matches_batched():
     from vision_processor_tpu.models.device_finish import pack_field_marks
     from vision_processor_tpu.parallel import multicam as M
 
-    rig = bench.build_rig(n_cams=2, max_blobs=600, resampling_factor=1.25,
-                          resample_mode="gather")
+    rig = bench.build_rig(n_cams=2, max_blobs=600, resampling_factor=1.25)
     cfg, raws, packed, scales, offsets, colors, params = rig[:7]
     cams = rig[8]
 

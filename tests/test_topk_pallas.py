@@ -1,11 +1,10 @@
 """Kernel-logic tests for ops/topk.py (Pallas interpreter on CPU).
 
-The production TPU path runs the same kernels compiled by Mosaic; the
-interpreter executes identical kernel code, so these pin the selection
-semantics (exact lax.top_k order, lowest-index ties, exhausted-row
-behavior) without hardware. The XLA fallback (what the rest of the CPU
-suite exercises) is asserted equal too, so all three implementations
-agree.
+The GPU runs the same kernel code compiled through Triton; the interpreter
+executes it here, so these pin the selection semantics (exact lax.top_k
+order, lowest-index ties, exhausted-row behavior, padding of the query,
+blob and result axes to powers of two) without hardware. The XLA form
+(what the rest of the CPU suite exercises) is asserted equal too.
 """
 from __future__ import annotations
 
@@ -18,40 +17,10 @@ from vision_processor_tpu.models.detector import iter_top_k
 from vision_processor_tpu.ops import topk as T
 
 
-def _rows_case():
-    rng = np.random.default_rng(11)
-    x = rng.normal(size=(24, 300)).astype(np.float32)
-    x[rng.uniform(size=x.shape) < 0.9] = -np.inf
-    x[3] = -np.inf                      # exhausted row
-    x[5, 7] = x[5, 200] = 2.5           # tie -> lower index first
-    return jnp.asarray(x)
-
-
-def test_row_topk_matches_lax_top_k():
-    x = _rows_case()
-    m = 9
-    pv, pi = T.row_topk(x, m, interpret=True)
-    lv, li = jax.lax.top_k(x, m)
-    np.testing.assert_array_equal(np.asarray(pv), np.asarray(lv))
-    valid = np.asarray(lv) > -np.inf
-    np.testing.assert_array_equal(np.asarray(pi)[valid], np.asarray(li)[valid])
-    # tie broke toward the lower index
-    row5 = np.asarray(pi)[5]
-    assert row5[0] == 7 and row5[1] == 200
-
-
-def test_row_topk_fallback_is_lax():
-    x = _rows_case()
-    pv, pi = T.row_topk(x, 9)  # CPU backend -> lax.top_k
-    lv, li = jax.lax.top_k(x, 9)
-    np.testing.assert_array_equal(np.asarray(pv), np.asarray(lv))
-    np.testing.assert_array_equal(np.asarray(pi), np.asarray(li))
-
-
 @pytest.mark.parametrize("by_rank", [True, False])
 def test_query_select_matches_fallback(by_rank):
     rng = np.random.default_rng(7)
-    q, k, m = 13, 150, 4
+    q, k, m = 13, 257, 4
     qxy = jnp.asarray(rng.uniform(-1000, 1000, (q, 2)).astype(np.float32))
     bxy = jnp.asarray(rng.uniform(-1000, 1000, (k, 2)).astype(np.float32))
     r2 = jnp.asarray(rng.uniform(100, 400, (q,)).astype(np.float32) ** 2)
@@ -96,3 +65,22 @@ def test_query_select_exhausted_rows():
     assert (v[0] == -np.inf).all()
     assert v[1, 0] > -np.inf and v[1, 1] > -np.inf
     assert np.asarray(i)[1, 0] == 0 and np.asarray(i)[1, 1] == 1
+
+
+@pytest.mark.parametrize("k,m", [(770, 19), (962, 6)])
+def test_query_select_widths(k, m):
+    """Blob axes padded to the next power of two and m past one 16-lane
+    result tile: indices identical to the XLA argmax passes."""
+    rng = np.random.default_rng(k)
+    q = 37
+    bxy = jnp.asarray(rng.uniform(-500, 500, (k, 2)).astype(np.float32))
+    qxy = bxy[:q] + 3.0
+    r2 = jnp.full((q,), 150.0 ** 2, jnp.float32)
+    rank = jnp.asarray(rng.permutation(k).astype(np.float32))
+    pv, pi = T.query_select_topk(qxy, r2, bxy, rank, m=m, by_rank=True,
+                                 interpret=True)
+    fv, fi = T.query_select_topk(qxy, r2, bxy, rank, m=m, by_rank=True)
+    assert pv.shape == pi.shape == (q, m)
+    np.testing.assert_array_equal(np.asarray(pv), np.asarray(fv))
+    np.testing.assert_array_equal(np.asarray(pi), np.asarray(fi))
+    assert (np.asarray(fv) > -np.inf).sum() >= q * min(m, 6)

@@ -1,4 +1,4 @@
-"""vision-processor-tpu: TPU-native real-time RoboCup SSL vision pipeline.
+"""vision-processor-tpu: real-time RoboCup SSL vision pipeline in JAX.
 
 Public surface:
 

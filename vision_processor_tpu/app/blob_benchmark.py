@@ -1,4 +1,4 @@
-"""blob_benchmark: GPU-stage (here: TPU-stage) quality evaluation.
+"""blob_benchmark: device-stage quality evaluation.
 
 Usage: python -m vision_processor_tpu.app.blob_benchmark [config.yml]
 
@@ -95,9 +95,9 @@ class Accumulator:
 
 
 def main(argv=None):
-    from ..utils import honor_platform_env
+    from ..utils import setup_compile_cache
 
-    honor_platform_env()
+    setup_compile_cache()
     argv = argv if argv is not None else sys.argv[1:]
     config = VisionConfig.load(argv[0] if argv else "config.yml")
     config.wait_for_geometry = False

@@ -34,9 +34,9 @@ log = get_logger(__name__)
 
 
 def main(argv=None):
-    from ..utils import honor_platform_env
+    from ..utils import setup_compile_cache
 
-    honor_platform_env()
+    setup_compile_cache()
     argv = argv if argv is not None else sys.argv[1:]
     config = VisionConfig.load(argv[0] if argv else "config.yml")
 

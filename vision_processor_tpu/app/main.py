@@ -224,9 +224,9 @@ class App:
 
 
 def main(argv=None):
-    from ..utils import honor_platform_env
+    from ..utils import setup_compile_cache
 
-    honor_platform_env()
+    setup_compile_cache()
     argv = argv if argv is not None else sys.argv[1:]
     if len(argv) > 1:
         # N configs -> production multi-camera mode: all cameras batched

@@ -1,4 +1,4 @@
-"""Production multi-camera mode: N cameras on one TPU chip, one XLA program.
+"""Production multi-camera mode: N cameras on one GPU, one XLA program.
 
 ``python -m vision_processor_tpu.app.main cfg0.yml cfg1.yml ...`` (more than
 one config) drives all cameras through ``parallel.multicam`` instead of one
@@ -127,14 +127,14 @@ class MultiCamApp:
         # hypothesis search) dispatches as soon as its raw lands on
         # device, one small batched TAIL (NMS + ids + in-graph finisher)
         # after the last core — uploads 1..n-1 hide under compute, which
-        # is what brings the strict serial glass-to-wire latency of a
-        # frame-set under the 5 ms budget (the batched program exposes
-        # the whole frame-set upload because every input must be resident
-        # before dispatch). Default: on for the frame-serial latency mode
+        # is what shortens the strict serial glass-to-wire latency of a
+        # frame-set (the batched program exposes the whole frame-set
+        # upload because every input must be resident before dispatch).
+        # Default: on for the frame-serial latency mode
         # (VPTPU_PIPELINE=0), off when pipelining already hides the
         # upload under the previous frame-set's compute.
         # tests/test_staggered.py pins semantic equality with the batched
-        # step; +0.05 ms/frame-set split cost (experiments/split_serial.py)
+        # step
         _stag = os.environ.get("VPTPU_STAGGERED")
         self.staggered = (_stag != "0") if _stag is not None \
             else not self.pipeline
@@ -166,9 +166,9 @@ class MultiCamApp:
         persp = [p.perspective for p in self.processors]
         # geometry_version is in the key so an in-run recalibration that
         # happens to preserve reprojected sizes (e.g. the rig-height solve
-        # moves cameras along the z=0-invariant manifold) still re-resolves
-        # warp_fits against the NEW models and refreshes the per-camera
-        # debug configs (CLAUDE.md: cache keys cover every projection input)
+        # moves cameras along the z=0-invariant manifold) still refreshes
+        # the per-camera debug configs against the NEW models (CLAUDE.md:
+        # cache keys cover every projection input)
         key = (fmt, raw_shape,
                tuple(pp.geometry_version for pp in persp),
                tuple(tuple(pp.reprojected_field_size) for pp in persp))
@@ -192,23 +192,6 @@ class MultiCamApp:
             disc_radius=B.disc_radius(ref.min_blob_radius, ref.field_scale),
             max_blobs=self.configs[0].max_blobs,
         )
-        # two-pass Pallas warp resample when EVERY camera's geometry admits
-        # it (the batched program shares one mode); same auto-resolution as
-        # Processor._ensure_step, via the shared ops/warp.py helper
-        from ..ops.warp import resolve_resample_mode
-
-        mode = resolve_resample_mode(
-            self.configs[0].resample_mode,
-            [(pp.model, pp.field_scale,
-              (pp.visible_field_extent[0], pp.visible_field_extent[2]),
-              float(proc.max_bot_height))
-             for pp, proc in zip(persp, self.processors)],
-            bm.flat_shape, bm.plane_shape,
-        )
-        if mode != bm.resample_mode:
-            from dataclasses import replace
-
-            bm = replace(bm, resample_mode=mode)
         det = DetectorConfig(max_blobs=bm.max_blobs,
                              max_tracked=self.processors[0].det_cfg.max_tracked)
         self.mc_cfg = MultiCamConfig(bm=bm, det=det, n_cams=self.n_cams)
@@ -424,7 +407,7 @@ class MultiCamApp:
         starts as soon as ITS raw is on device: each upload overlaps the
         previous camera's compute instead of serializing ahead of one big
         dispatch, the latency shape bench.measure_staggered_serial
-        measures against the 5 ms frame-set budget."""
+        measures."""
         jax, jnp = self._jax, self._jax.numpy
         from ..parallel.multicam import params_for_cam
 

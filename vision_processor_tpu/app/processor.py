@@ -239,21 +239,6 @@ class Processor:
         self._bm_cfg = BlobMachineConfig.from_perspective(
             self.perspective, fmt, raw_shape, max_blobs=self.config.max_blobs
         )
-        # two-pass Pallas warp resample where the geometry admits it
-        # ("auto"); warp_fits rejects non-separable maps (heavy rotation)
-        # and falls back to the bit-exact gather path
-        from ..ops.warp import resolve_resample_mode
-
-        mode = resolve_resample_mode(
-            self.config.resample_mode,
-            [(self.perspective.model, self._bm_cfg.field_scale,
-              self._bm_cfg.field_offset, self.max_bot_height)],
-            self._bm_cfg.flat_shape, self._bm_cfg.plane_shape,
-        )
-        if mode != self._bm_cfg.resample_mode:
-            from dataclasses import replace
-
-            self._bm_cfg = replace(self._bm_cfg, resample_mode=mode)
         # note on buffer lifetime: the uint8 raw frame cannot alias any
         # output (no dtype/shape-compatible result), so donation buys
         # nothing — XLA frees the buffer right after the Bayer split reads

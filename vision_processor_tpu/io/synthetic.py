@@ -87,6 +87,38 @@ def _field_lines_mask(pos_xy: np.ndarray, field) -> np.ndarray:
     return mask
 
 
+def _paint_balls(img: np.ndarray, ground: np.ndarray, balls) -> None:
+    """Paint every pixel whose ground point lies within a ball's radius.
+
+    Pixels are bucketed by ground cell (a cell at least one ball diameter
+    wide, so each ball's disc touches at most 2 x 2 cells) and each ball
+    tests only the pixels of its cells — the same d2 test as over the whole
+    image, so dense scenes with thousands of balls render in seconds."""
+    if not balls:
+        return
+    g = ground.reshape(-1, 2)
+    pix = np.flatnonzero(np.isfinite(g).all(axis=-1))
+    cell = 2.0 * max(b.radius for b in balls)
+    span = 1 << 20  # cell-index range per axis (grounds are a few metres)
+    cx = np.floor(g[pix, 0] / cell).astype(np.int64)
+    cy = np.floor(g[pix, 1] / cell).astype(np.int64)
+    keys = cx * span + cy
+    order = np.argsort(keys, kind="stable")
+    keys, pix = keys[order], pix[order]
+    flat = img.reshape(-1, 3)
+    for ball in balls:
+        r = ball.radius
+        for kx in range(int(np.floor((ball.x - r) / cell)),
+                        int(np.floor((ball.x + r) / cell)) + 1):
+            for ky in range(int(np.floor((ball.y - r) / cell)),
+                            int(np.floor((ball.y + r) / cell)) + 1):
+                k = kx * span + ky
+                lo, hi = np.searchsorted(keys, [k, k + 1])
+                cand = pix[lo:hi]
+                d2 = np.sum((g[cand] - [ball.x, ball.y]) ** 2, axis=-1)
+                flat[cand[d2 <= r**2]] = BALL_ORANGE
+
+
 def render_rgb(
     model: CameraModel, field, scene: Scene, size: tuple[int, int] | None = None
 ) -> np.ndarray:
@@ -114,9 +146,7 @@ def render_rgb(
     img[_field_lines_mask(np.nan_to_num(ground, nan=1e9), field)] = LINE
 
     # balls: disc on the carpet
-    for ball in scene.balls:
-        d2 = np.sum((ground - [ball.x, ball.y]) ** 2, axis=-1)
-        img[d2 <= ball.radius**2] = BALL_ORANGE
+    _paint_balls(img, ground, scene.balls)
 
     # bots: cover plane at z=height (painted last -> occludes carpet/ball)
     for bot in scene.bots:

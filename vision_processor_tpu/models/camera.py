@@ -23,6 +23,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass, field
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -362,7 +363,10 @@ def field2image_packed(packed, fieldpos, iterations: int = 8):
     cam = packed[13:16]
 
     rel = fieldpos - cam
-    ray = rel @ rot.T
+    # HIGHEST: a default-precision f32 matmul runs in TF32 on the GPU, and
+    # 10-bit mantissas on the rotation move a 4.5 m ray by millimetres
+    # (about a pixel); the resample grid is built from this projection
+    ray = jnp.matmul(rel, rot.T, precision=jax.lax.Precision.HIGHEST)
     n = ray[..., :2] / ray[..., 2:3]
     orig = n
     for _ in range(iterations):
@@ -383,7 +387,8 @@ def image2field_packed(packed, imgpos, height):
     r2 = jnp.sum(n * n, axis=-1, keepdims=True)
     n = n * (1.0 + k2 * r2)
     ray = jnp.concatenate([n, jnp.ones_like(n[..., :1])], axis=-1)
-    ray = ray @ rot  # == rot.T applied to each ray
+    # == rot.T applied to each ray; HIGHEST as in field2image_packed
+    ray = jnp.matmul(ray, rot, precision=jax.lax.Precision.HIGHEST)
     scale = (-cam[2] + height) / ray[..., 2]
     out = ray * scale[..., None] + cam
     out = out.at[..., 2].set(height)

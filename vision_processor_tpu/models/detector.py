@@ -59,8 +59,7 @@ class DetectorConfig:
     # ROBOT (valid, id >= 0) sits in the first `max_tracked_tier` slots,
     # the per-slot cross-product search runs on that window only — exactly
     # equivalent (per-slot searches are independent; excluded slots output
-    # the same inert zeros either way) at ~1/3 the cost (measured 0.099 ->
-    # 0.030 ms/camera, experiments/tracked_tier.py). The condition is
+    # the same inert zeros either way) at half the slots. The condition is
     # EXACT (no qualifying slot beyond the window), not a prefix
     # assumption, so host-built tracked arrays with ball entries (-1)
     # interleaved stay correct.
@@ -92,7 +91,7 @@ def detection_combo_table(ring_size: int) -> np.ndarray:
 @functools.lru_cache(maxsize=None)
 def _detection_onehot_tables(ring_size: int):
     """Static one-hot matrices turning ring-level quantities into per-combo
-    sums on the MXU (see detection_hypotheses). Per combo and slot pair,
+    sums as matmuls (see detection_hypotheses). Per combo and slot pair,
     the orientation contribution cos/sin(angle(diff) - pattern_angle) is a
     fixed linear combination of the ordered ring-pair unit vectors, so the
     per-combo accumulation is a (A, 162) @ (162, C) matmul instead of
@@ -153,7 +152,7 @@ def iter_top_k(scores, k: int):
 
     For the detector's tiny k (ring=8, candidates=3) this lowers to k cheap
     reductions instead of lax.top_k's per-row sort over the full 2000-blob
-    axis (measured ~0.1 ms/camera cheaper on the full step). Ties pick the
+    axis. Ties pick the
     lower index, matching lax.top_k's stable order.
 
     CAUTION: once a row is exhausted (all remaining -inf), argmax repeats
@@ -353,9 +352,9 @@ def detection_hypotheses(cfg: DetectorConfig, blob_pos, blob_valid, max_robot_ra
     # `max_anchors_tier` slots the identity window over that tier is
     # exactly equivalent to the full window (same prefix argument as the
     # ranked-anchors skip above — the extra full-window anchors would
-    # all be invalid), at a fraction of the combo-scoring cost. Measured
-    # 0.244 -> 0.045 ms/camera (A=512 vs 128) on sparse scenes; dense
-    # scenes take the full ranked path unchanged.
+    # all be invalid), at a quarter of the combo-scoring work (A=128 vs
+    # 512) on sparse scenes; dense scenes take the full ranked path
+    # unchanged.
     tier = cfg.max_anchors_tier
     if not (0 < tier < a):
         return full_window()
@@ -386,8 +385,8 @@ def _window_hypotheses(cfg, blob_pos, blob_valid, max_robot_radius, rank,
     neighbours, reference src/main.cpp:63-75; K bounds the tensor shape).
     The anchor itself is a candidate, mirroring rangeSearch returning the
     query blob. The radius test + rank top-K runs fused in a Pallas
-    kernel on TPU (ops/topk.py query_select_topk) so the (A, k_all)
-    score map never materializes; the fallback reproduces the masked
+    kernel on the GPU (ops/topk.py query_select_topk) so the (A, k_all)
+    score map never materializes; the XLA form reproduces the masked
     iter_top_k exactly.
     """
     a = anchor_idx.shape[0]
@@ -425,14 +424,11 @@ def _window_hypotheses(cfg, blob_pos, blob_valid, max_robot_radius, rank,
     combo_ok &= (ring_count[:, None] >= 4) & anchor_valid[:, None]
 
     # gather each anchor's ring positions once (A*K indices); everything
-    # per-combo is then one-hot MXU contractions against the static combo
-    # tables — no (A, C, ...) gathers. A fused-VMEM Pallas form of the
-    # score chain exists (ops/combo_pallas.py) but measured ~0.06 ms per
-    # frame-set SLOWER than the XLA chain — opt-in VPTPU_COMBO_KERNEL=1,
-    # default off. Scores match the pairwise form
+    # per-combo is then one-hot contractions against the static combo
+    # tables — no (A, C, ...) gathers. Scores match the pairwise form
     # within fp reassociation (~1e-5), so only exact score TIES between
     # combos (near-symmetric degenerate rings) can pick a different
-    # rotation of the same constellation; measured ~0.2 ms/camera cheaper
+    # rotation of the same constellation
     ring_pos = blob_pos[ring_idx]  # (A, K, 2)
     ring9 = jnp.concatenate([anchor_pos[:, None, :], ring_pos], axis=1)
     n9 = k + 1
@@ -451,74 +447,49 @@ def _window_hypotheses(cfg, blob_pos, blob_valid, max_robot_radius, rank,
     pat = np.asarray(PATTERN_POS, dtype=np.float32)
     pbar = pat.sum(axis=0)
 
-    from ..ops.combo_pallas import combo_chain, use_combo_kernel
+    dot = lambda x, w: jax.lax.dot_general(
+        x, jnp.asarray(w), (((1,), (0,)), ((), ())), precision=hi
+    )
+    o_cos = dot(u2, w_cos)  # (A, C)
+    o_sin = dot(u2, w_sin)
+    norm2 = o_cos * o_cos + o_sin * o_sin
+    ok_n = norm2 > 0.0
+    inv_n = jnp.where(
+        ok_n, jax.lax.rsqrt(jnp.maximum(norm2, 1e-30)), 0.0)
+    cc = jnp.where(ok_n, o_cos * inv_n, 1.0)
+    ss = o_sin * inv_n
 
-    if use_combo_kernel():
-        # fused VMEM chain (ops/combo_pallas.py): tables padded to a
-        # 128-multiple combo axis so the matmul outputs are born
-        # lane-aligned; the elementwise chain + argmax never touch HBM
-        c_real = combos_np.shape[0]
-        cp = -(-c_real // 128) * 128
-        padc = lambda t: np.pad(np.asarray(t), ((0, 0), (0, cp - c_real)))
-        dotp = lambda x, w: jax.lax.dot_general(
-            x, jnp.asarray(padc(w)), (((1,), (0,)), ((), ())), precision=hi
+    # position = mean over slots of (blob - rotated pattern)
+    sum_x = dot(ring9[..., 0], count9)
+    sum_y = dot(ring9[..., 1], count9)
+    pos_x = (sum_x - (cc * pbar[0] - ss * pbar[1])) / 5.0
+    pos_y = (sum_y - (ss * pbar[0] + cc * pbar[1])) / 5.0
+
+    # min slot score (all 5 slots occupied on the detection path)
+    offset_score = None
+    for s5 in range(5):
+        if s5 == 0:
+            p5x = anchor_pos[:, 0:1]
+            p5y = anchor_pos[:, 1:2]
+        else:
+            p5x = dot(ring9[..., 0], onehot_slot[s5 - 1].T)
+            p5y = dot(ring9[..., 1], onehot_slot[s5 - 1].T)
+        dx = (p5x - (pos_x + (cc * pat[s5, 0] - ss * pat[s5, 1]))) / 10.0
+        dy = (p5y - (pos_y + (ss * pat[s5, 0] + cc * pat[s5, 1]))) / 10.0
+        sc = 1.0 / (1.0 + dx * dx + dy * dy)
+        offset_score = sc if offset_score is None else jnp.minimum(
+            offset_score, sc
         )
-        o_cos = dotp(u2, w_cos)   # (A, CP)
-        o_sin = dotp(u2, w_sin)
-        sum_x = dotp(ring9[..., 0], count9)
-        sum_y = dotp(ring9[..., 1], count9)
-        p5xs = [dotp(ring9[..., 0], onehot_slot[s].T) for s in range(4)]
-        p5ys = [dotp(ring9[..., 1], onehot_slot[s].T) for s in range(4)]
-        best_score, cc_w, ss_w, posx_w, posy_w, best = combo_chain(
-            o_cos, o_sin, sum_x, sum_y, p5xs, p5ys, anchor_pos,
-            ring_count, anchor_valid, combo_max, c_real, pat, pbar,
-        )
-        best_orient = jnp.arctan2(ss_w, cc_w)
-        best_pos = jnp.stack([posx_w, posy_w], axis=-1)
-    else:
-        dot = lambda x, w: jax.lax.dot_general(
-            x, jnp.asarray(w), (((1,), (0,)), ((), ())), precision=hi
-        )
-        o_cos = dot(u2, w_cos)  # (A, C)
-        o_sin = dot(u2, w_sin)
-        norm2 = o_cos * o_cos + o_sin * o_sin
-        ok_n = norm2 > 0.0
-        inv_n = jnp.where(
-            ok_n, jax.lax.rsqrt(jnp.maximum(norm2, 1e-30)), 0.0)
-        cc = jnp.where(ok_n, o_cos * inv_n, 1.0)
-        ss = o_sin * inv_n
 
-        # position = mean over slots of (blob - rotated pattern)
-        sum_x = dot(ring9[..., 0], count9)
-        sum_y = dot(ring9[..., 1], count9)
-        pos_x = (sum_x - (cc * pbar[0] - ss * pbar[1])) / 5.0
-        pos_y = (sum_y - (ss * pbar[0] + cc * pbar[1])) / 5.0
+    score = jnp.where(combo_ok, offset_score, 0.0)
 
-        # min slot score (all 5 slots occupied on the detection path)
-        offset_score = None
-        for s5 in range(5):
-            if s5 == 0:
-                p5x = anchor_pos[:, 0:1]
-                p5y = anchor_pos[:, 1:2]
-            else:
-                p5x = dot(ring9[..., 0], onehot_slot[s5 - 1].T)
-                p5y = dot(ring9[..., 1], onehot_slot[s5 - 1].T)
-            dx = (p5x - (pos_x + (cc * pat[s5, 0] - ss * pat[s5, 1]))) / 10.0
-            dy = (p5y - (pos_y + (ss * pat[s5, 0] + cc * pat[s5, 1]))) / 10.0
-            sc = 1.0 / (1.0 + dx * dx + dy * dy)
-            offset_score = sc if offset_score is None else jnp.minimum(
-                offset_score, sc
-            )
-
-        score = jnp.where(combo_ok, offset_score, 0.0)
-
-        best = jnp.argmax(score, axis=-1)  # (A,)
-        take = lambda arr: jnp.take_along_axis(
-            arr, best[:, None], axis=1)[:, 0]
-        best_score = take(score)
-        # one atan2 per anchor, on the winning combo only
-        best_orient = jnp.arctan2(take(ss), take(cc))
-        best_pos = jnp.stack([take(pos_x), take(pos_y)], axis=-1)
+    best = jnp.argmax(score, axis=-1)  # (A,)
+    take = lambda arr: jnp.take_along_axis(
+        arr, best[:, None], axis=1)[:, 0]
+    best_score = take(score)
+    # one atan2 per anchor, on the winning combo only
+    best_orient = jnp.arctan2(take(ss), take(cc))
+    best_pos = jnp.stack([take(pos_x), take(pos_y)], axis=-1)
     # winner side blobs: static combo lookup, then the winner's ring slots
     best_combo = jnp.asarray(combos_np)[best]  # (A, 4) ring slot indices
     best_sides = jnp.take_along_axis(ring_idx, best_combo, axis=1)
@@ -639,7 +610,7 @@ def _tracked_window(
     )  # (T, 5, 2)
 
     # nearest-M blobs per pattern slot; the (T*5, k) distance map fuses
-    # into the Pallas select on TPU (ops/topk.py), iter_top_k elsewhere
+    # into the Pallas select on the GPU (ops/topk.py), iter_top_k on CPU
     from ..ops.topk import query_select_topk
 
     cand_val, cand_idx = query_select_topk(
@@ -661,9 +632,8 @@ def _tracked_window(
     # Expand per-slot candidate tables to all combos with static
     # (m+1)-way selects: the combo table is a compile-time constant, so
     # each slot's choice is a chain of m `where`s over tiny (T, 5, ...)
-    # candidate tables — pure VPU selects instead of the (T, Ct, 5, M)
-    # broadcast gathers + (T*Ct*5)-index blob gathers, which dominated the
-    # detector cost (gather cost scales with index count on TPU).
+    # candidate tables — elementwise selects instead of the (T, Ct, 5, M)
+    # broadcast gathers + (T*Ct*5)-index blob gathers.
     slot_range = jnp.arange(5)
     cand_pos = blob_pos[cand_idx]  # (T, 5, M, 2) — 5*M*T indices only
     pick = [
@@ -1039,8 +1009,7 @@ def _guarded_kmeans2(contrast, vals, c1_init, c2_init, iters: int = 24):
     bit-identical to the full 24-round unroll (a frozen row's update is a
     no-op: centers keep their value, ``ok`` cannot change once ``active``
     is False) but ~4x fewer sequenced tiny ops in the common case, which
-    matters because this chain is op-dispatch-bound, not FLOP-bound
-    (experiments/finalize_micro.py).
+    matters because this chain is op-dispatch-bound, not FLOP-bound.
 
     contrast (B, 3), vals (B, 4, 3), c1/c2 (3,) int32. Returns (B, 3) x2.
     """

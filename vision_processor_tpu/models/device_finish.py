@@ -6,8 +6,7 @@ src/blobs/hypothesis.cpp:83-94,208-270).
 
 Why on device: the host finishing path is pure Python/numpy over tiny
 arrays and holds the GIL, so four cameras' finishing on one process
-serializes (measured ~12 ms pooled vs 2.1 ms x 1 serial — the round-3
-pipeline bottleneck). Everything here is shape-static vectorized math, so
+serializes. Everything here is shape-static vectorized math, so
 it fuses into the per-camera XLA program; the host keeps only protobuf
 assembly over the handful of surviving detections.
 
@@ -103,7 +102,10 @@ def masked_kmeans2(contrast, vals, mask, c1_init, c2_init, iters: int = 24):
 
     # pairwise distances via the norm expansion: dRGB components are small
     # ints, so every product is exact in f32 and this runs as one tiny
-    # matmul instead of an (N, N, 3) broadcast
+    # matmul instead of an (N, N, 3) broadcast. The default precision may
+    # run it in TF32 on the GPU; that stays exact because every integer
+    # with |v| < 2048 fits TF32's 11 significand bits, and dRGB values are
+    # bounded by 255 in magnitude
     vf = vals.astype(jnp.float32)
     nrm = jnp.sum(vf * vf, axis=-1)
     pair = nrm[:, None] + nrm[None, :] - 2.0 * (vf @ vf.T)
@@ -517,12 +519,10 @@ def finish_on_device_batched(
     """``finish_on_device`` vmapped over the camera axis.
 
     The finisher is small-tensor math (no image-scale gathers), so unlike
-    the blob machine — whose camera loop is unrolled because XLA lowers
-    batched image gathers ~2.5x slower — batching it is pure win: one op
-    per stage instead of one per camera, which matters because the
+    the blob machine, whose camera loop is unrolled, batching it gives one
+    op per stage instead of one per camera, which matters because the
     finisher's device cost is op-dispatch-bound (24 unrolled k-means
-    iterations of tiny ops), not FLOP-bound. Measured: the unrolled
-    4-camera finisher costs ~1.5 ms/frame-set; batched ~4x less.
+    iterations of tiny ops), not FLOP-bound.
 
     All array inputs carry a leading camera axis; ``params`` must come
     from ``stack_finish_params``.

@@ -66,7 +66,7 @@ def kmeans2_batch(
 ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Batched ``kmeans2``: same guarded semantics, one numpy pass per
     iteration over all rows instead of a Python call per row (the per-bot
-    id assignment was the host-finishing hot spot at ~0.18 ms/call).
+    id assignment was the host-finishing hot spot).
 
     contrast (B, 3), vals (B, N, 3), c1/c2 (3,) ints.
     Returns (updated (B,), c1 (B, 3), c2 (B, 3)).

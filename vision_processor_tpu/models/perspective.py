@@ -3,7 +3,7 @@
 Mirrors the reference Perspective (reference src/Perspective.cpp:35-150) with
 the pixel-footprint loops fully vectorized in numpy. The derived quantities
 (fieldScale, visibleFieldExtent, reprojectedFieldSize, blob radii) define the
-static shape of the flattened field grid the TPU pipeline operates on;
+static shape of the flattened field grid the device pipeline operates on;
 geometry changes are rare and may recompile the pipeline.
 """
 from __future__ import annotations

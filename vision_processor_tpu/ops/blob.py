@@ -1,12 +1,12 @@
 """Blob response chain on the flat field grid.
 
-TPU-first equivalents of the reference's gradient/SAT/circularity/extraction
+Array-program equivalents of the reference's gradient/SAT/circularity/extraction
 OpenCL kernels:
 
 * gradient ring response  — kernel/gradientDot.cl:22-30
 * summed-area table       — kernel/satHorizontal.cl + satVertical.cl, here two
-                            `jnp.cumsum` calls (log-depth scans on the VPU
-                            instead of one serial work-item per row/column)
+                            `jnp.cumsum` calls (parallel scans instead of
+                            one serial work-item per row/column)
 * quadrant circularity    — kernel/satBlobCenter.cl:34-45, shifted-slice reads
 * blob extraction         — kernel/blobList.cl:36-102; the atomic-append
                             compaction becomes a masked top-k into a fixed
@@ -118,8 +118,8 @@ def disc_stats(flat: jnp.ndarray, radius: int) -> tuple[jnp.ndarray, jnp.ndarray
     kern = jnp.broadcast_to(mask, (3, 1, 2 * r + 1, 2 * r + 1))  # OIHW depthwise
 
     def conv(v):
-        # HIGHEST precision: keep f32 accumulation on TPU (default would
-        # multiply in bf16 and break parity with the reference's f32 sums)
+        # HIGHEST precision: keep f32 products (the default may run in a
+        # reduced precision and break parity with the reference's f32 sums)
         return jax.lax.conv_general_dilated(
             v,
             kern,
@@ -200,9 +200,8 @@ def disc_stats_at(flat: jnp.ndarray, iy: jnp.ndarray, ix: jnp.ndarray,
     matching the reference's CLK_ADDRESS_CLAMP_TO_EDGE reads,
     reference kernel/blobList.cl:58-75 — which also computes the stats
     only at surviving pixels, never over the full image). K*|disc| short
-    gather rows are ~100x less HBM traffic than full-image span sums when
-    K*|disc| << H*W (TPU gather cost scales with bytes fetched, not with
-    arithmetic saved — see PERFORMANCE.md gather facts).
+    gather rows move far fewer bytes than full-image span sums when
+    K*|disc| << H*W.
 
     Returns (s1 (K,3), s2 (K,3), n)."""
     h, w = flat.shape[:2]
@@ -218,15 +217,11 @@ def disc_stats_at(flat: jnp.ndarray, iy: jnp.ndarray, ix: jnp.ndarray,
 def _compact_masked(masked, max_blobs: int):
     """Exact top-`max_blobs` over a (-inf)-masked response map.
 
-    Fast path: per-row top-m, then global top-k over the h*m survivors —
-    ~4x cheaper than one flat-map top_k (round-2 measurement). m is sized
-    4x above the uniform-spread average, so the row stage is lossless for
-    every scene whose densest row holds <= m candidates; the row stage
-    runs as a Pallas in-VMEM select on TPU (ops/topk.py row_topk — the
-    single biggest op of the dense frame-set trace when sort-lowered;
-    lax.top_k elsewhere / via VPTPU_PALLAS_ROWTOPK=0). Exhausted rows
-    repeat index 0,
-    so validity comes from the VALUES, never the indices.
+    Fast path: per-row top-m, then global top-k over the h*m survivors,
+    instead of one flat-map top_k. m is sized 4x above the uniform-spread
+    average, so the row stage is lossless for every scene whose densest
+    row holds <= m candidates. Exhausted rows repeat index 0, so validity
+    comes from the VALUES, never the indices.
 
     Occupancy tiers (exact, keyed on the DENSEST ROW's candidate count —
     one cheap reduce over the mask that fuses into its producer):
@@ -250,10 +245,8 @@ def _compact_masked(masked, max_blobs: int):
     """
     h, w = masked.shape
     m = min(w, max(16, -(-4 * max_blobs // h)))
-    from .topk import row_topk
-
     def stage(mm):
-        row_scores, row_idx = row_topk(masked, mm)  # (h, mm)
+        row_scores, row_idx = jax.lax.top_k(masked, mm)  # (h, mm)
         cand_idx = (row_idx + (jnp.arange(h) * w)[:, None]).reshape(-1)
         vals, ci = jax.lax.top_k(row_scores.reshape(-1), max_blobs)
         return vals, cand_idx[ci]
@@ -376,8 +369,8 @@ def blob_response(flat, circ, circ_threshold, radius: int):
     threshold + local-max test carries score = circ / sum(stddev) and the
     disc mean color; extraction then selects directly by score, so the
     compaction needs no second ordering pass and no candidate-local
-    gathers. Span-sum based (disc_stats_sat); the TPU path computes the
-    same maps inside the fused band kernel (ops/blob_pallas.py).
+    gathers. Span-sum based (disc_stats_sat); on the GPU the stencil
+    kernels of ops/blob_pallas.py compute the same maps.
 
     Returns (masked_score (H, W) with -inf outside the mask, mean
     (H, W, 3), count scalar).
@@ -404,12 +397,6 @@ def extract_blobs_scored(flat, circ, masked_score, mean, count,
     center, circ+neighbors for the sub-pixel peak).
     """
     h, w = masked_score.shape
-    # NOTE: replacing the row-stage sort-lowered top_k with m iterative
-    # argmax passes (detector.iter_top_k) wins in isolation (0.106 vs
-    # 0.183 ms, experiments/extract_scored_micro.py) but is
-    # NEUTRAL-to-worse in the full sustained pipeline (4.80 vs 4.77 ms
-    # per 4-cam frame-set) — XLA already hides the row sort; measured
-    # and reverted.
     top_score, idx = _compact_masked(masked_score, max_blobs)
     slot_valid = top_score > -jnp.inf
 

@@ -1,312 +1,193 @@
-"""Fused gradient→box-sum→circularity Pallas kernel.
+"""Blob response as tiled stencil kernels (Pallas, Triton route).
 
-The XLA chain materializes three full maps between the flat image and the
-circularity response: gradient-dot (pad + 4 shifted slices), the SAT (two
-global cumsums) and the 16-read quadrant circularity — ~0.14 ms/camera of
-mostly HBM round-trips at factor 1.25. This kernel computes the response
-in one pass over a band of rows held in VMEM: the three flat channels
-stay resident across the grid (constant-index blocks, the ops/warp.py
-pattern), each step loads a haloed row window with ``pl.ds``, forms the
-gradient with lane rolls, replaces the global SAT with LOCAL
-(r-1)x(r-1) box sums (the four quadrant reads of an inclusive SAT reduce
-to one box array sampled at four offsets), and writes the per-row
-circularity.
+The XLA chain for the score-first response (ops/blob.py gradient_dot ->
+summed_area_table -> circularity -> blob_response) materializes the
+gradient, a two-cumsum SAT, the circularity map, the six-channel row
+prefix sums of the disc statistics and their span differences as
+full-map round trips. Here three stencil kernels replace it, each over
+power-of-two 2-D tiles with every neighbour read as a clamped load at a
+shifted offset (served by L1/L2), and no state carried across blocks:
 
-Semantics: the quadrant SUMS are mathematically identical to the SAT
-formulation but accumulate in a different order (local adds vs global
-cumsum differences), so values agree only to f32 rounding (~1e-5
-relative — the SAT's large-minus-large cancellation is actually the less
-accurate side). Like the warp resample, the fused path is
-detection-equivalent, not bit-identical: production selects it on TPU
-(VPTPU_FUSED_CIRC=0 opts out), every other backend keeps the XLA chain,
-and tests pin both value tolerance and detection-level equality.
+1. ``_grad_kernel``: the gradient-dot map (clamped channel reads);
+2. ``_circ_kernel``: the four quadrant box sums read straight from that
+   map — the SAT never exists;
+3. ``_response_kernel``: the 4-neighbour local-max test, the disc colour
+   mean/stddev from direct tap loads, the score and the threshold mask.
+
+Semantics: every box sum adds exactly the gradient entries the SAT
+formulation's clamped quadrant reads cover, border included, and the disc
+sums the same taps as the row-prefix spans; only the order of the
+additions differs (local adds instead of global cumsum differences), so
+values agree to f32 rounding (~1e-5 relative). The kernels are the more
+accurate side: the SAT's and the row prefix sums' large-minus-large
+differences round at the magnitude of whole rows, and the disc variance
+is taken relative to the centre pixel.
 
 Correspondence: reference kernel/gradientDot.cl:22-30,
-kernel/satHorizontal.cl + satVertical.cl, kernel/satBlobCenter.cl:34-45.
+kernel/satHorizontal.cl + satVertical.cl, kernel/satBlobCenter.cl:34-45,
+kernel/blobList.cl:48-94.
 """
 from __future__ import annotations
 
 import functools
-import os
 
 import jax
 import jax.numpy as jnp
+import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plt
 
-BLK = 16   # output rows per grid step
-LAN = 128
-
-
-def _pad_to(n: int, m: int) -> int:
-    return ((n + m - 1) // m) * m
+TH, TW = 8, 128  # output tile (rows, lanes) of every kernel here
+NUM_WARPS = 4
 
 
-def use_fused_circ() -> bool:
-    return (
-        os.environ.get("VPTPU_FUSED_CIRC", "1") != "0"
-        and jax.default_backend() == "tpu"
-    )
+def _rows_cols():
+    """Row and column coordinates of this block's tile."""
+    ys = pl.program_id(0) * TH + jnp.arange(TH, dtype=jnp.int32)
+    xs = pl.program_id(1) * TW + jnp.arange(TW, dtype=jnp.int32)
+    return ys, xs
 
 
-def _roll(x, s: int):
-    # pltpu.roll needs a non-negative shift; wrap negative shifts modulo
-    # the (static) lane count — the wrap zone lies inside the crop margin
-    return pltpu.roll(x, s % x.shape[1], 1)
+def _at(ref, ys, xs, dy: int, dx: int, h: int, w: int):
+    """ref[clip(ys + dy), clip(xs + dx)] as a (TH, TW) tile."""
+    yy = jnp.clip(ys + dy, 0, h - 1)[:, None]
+    xx = jnp.clip(xs + dx, 0, w - 1)[None, :]
+    return plt.load(ref.at[yy, xx])
 
 
-def _kernel(c0_ref, c1_ref, c2_ref, out_ref, *, o: int, r: int, blk: int):
-    """One band: output rows [i*blk, i*blk + blk) of the padded map."""
-    i = pl.program_id(0)
-    pad = o + r  # row halo on each side of the output band
-    win = blk + 2 * pad
-
-    def grad(ref):
-        # gradient rows [o, win - o) of the window: needs rows +-o and
-        # lanes +-o of the flat channel
-        c = ref[pl.ds(i * blk, win), :]
-        gx = _roll(c, -o) - _roll(c, o)  # c[x+o] - c[x-o]
-        n = win - 2 * o
-        gy = c[2 * o : 2 * o + n, :] - c[0:n, :]
-        return gx[o : o + n, :] * gy
-
-    g = grad(c0_ref) + grad(c1_ref) + grad(c2_ref)  # rows [yo=-r, blk+r)
-
-    # local (r-1)x(r-1) box sums: B[y, x] = sum_{0<=a,b<r-1} G[y+a, x+b].
-    # The four quadrant reads of the inclusive SAT reduce to this one box
-    # array sampled at four offsets (derived from ops/blob.circularity's
-    # read() algebra; G row index = output-relative yo + r):
-    #   pp  =  B[yo+2,   x+2]      nn  =  B[yo-r+1, x-r+1]
-    #   pn  = -B[yo-r+1, x+2]      np_ = -B[yo+2,   x-r+1]
-    acc = g
-    for b in range(1, r - 1):
-        acc = acc + _roll(g, -b)
-    rows_b = blk + r + 2  # B rows [0, blk+r+2) in G coordinates
-    box = acc[0:rows_b, :]
-    for a in range(1, r - 1):
-        box = box + acc[a : a + rows_b, :]
-
-    hi = box[r + 2 : r + 2 + blk, :]  # B at G row yo + r + 2  (pp / np_)
-    lo = box[1 : 1 + blk, :]          # B at G row yo + 1      (nn / pn)
-    # roll(x, s): value at lane i becomes x[i - s]
-    pp = _roll(hi, -2)          # B[.., x+2]
-    np_ = _roll(hi, r - 1)      # B[.., x-r+1], enters negated
-    nn = _roll(lo, r - 1)
-    pn = _roll(lo, -2)          # enters negated
-    inv = 1.0 / float(r * r)
-    out_ref[:, :] = (
-        jnp.minimum(jnp.minimum(pp, nn), jnp.minimum(-pn, -np_)) * inv
-    )
+def _store(ref, val):
+    """Write this block's tile (outputs are padded to whole tiles)."""
+    plt.store(ref.at[pl.ds(pl.program_id(0) * TH, TH),
+                     pl.ds(pl.program_id(1) * TW, TW)], val)
 
 
-def _response_kernel(th_ref, c0_ref, c1_ref, c2_ref, ms_ref, circ_ref,
-                     m0_ref, m1_ref, m2_ref, *, o: int, r: int, dr: int,
-                     blk: int, spans, n_taps: int):
-    """Band kernel for the full blob response (see blob_response_fused).
+def _grad_kernel(c0_ref, c1_ref, c2_ref, g_ref, *, o: int, h: int, w: int):
+    """ops/blob.gradient_dot: sum_c (c[y, x+o] - c[y, x-o]) *
+    (c[y+o, x] - c[y-o, x]), channel reads clamped to the map."""
+    ys, xs = _rows_cols()
+    g = None
+    for ref in (c0_ref, c1_ref, c2_ref):
+        gx = _at(ref, ys, xs, 0, o, h, w) - _at(ref, ys, xs, 0, -o, h, w)
+        gy = _at(ref, ys, xs, o, 0, h, w) - _at(ref, ys, xs, -o, 0, h, w)
+        g = gx * gy if g is None else g + gx * gy
+    _store(g_ref, g)
 
-    Computes, per output band: circularity (as in _kernel) for rows
-    yo-1..yo+blk (the extra rows feed the local-max test), the disc color
-    mean/stddev from grouped row-span sums, the score and the
-    threshold+local-max mask — masked score, circ and the three mean
-    planes are written out.
-    """
-    i = pl.program_id(0)
-    pad = o + r + 1
-    win = blk + 2 * pad
-    th = th_ref[0]
 
-    cs = [c0_ref[pl.ds(i * blk, win), :], c1_ref[pl.ds(i * blk, win), :],
-          c2_ref[pl.ds(i * blk, win), :]]
+def _circ_kernel(g_ref, circ_ref, *, r: int, h: int, w: int):
+    """ops/blob.circularity as direct box sums of the gradient map.
 
-    # ---- circularity over rows [pad-1, pad+blk+1) of the window ----
-    def grad(c):
-        gx = _roll(c, -o) - _roll(c, o)
-        n = win - 2 * o
-        gy = c[2 * o : 2 * o + n, :] - c[0:n, :]
-        return gx[o : o + n, :] * gy
+    The SAT quadrant read ``S[hi] - S[lo]`` with clamped indices sums the
+    rows t with clip(y + lo) < t <= clip(y + hi), and likewise the
+    columns; each quadrant here adds exactly those g entries, so only the
+    order of the additions differs from the SAT chain."""
+    ys, xs = _rows_cols()
+    spans = {1: (1, r), -1: (-r, -1)}  # (lo, hi) offsets per side
 
-    g = grad(cs[0]) + grad(cs[1]) + grad(cs[2])  # g-index = k - o
-    acc = g
-    for b in range(1, r - 1):
-        acc = acc + _roll(g, -b)
-    rows_b = blk + r + 4
-    box = acc[0:rows_b, :]
-    for a in range(1, r - 1):
-        box = box + acc[a : a + rows_b, :]
-    rows_c = blk + 2
-    hi = box[r + 2 : r + 2 + rows_c, :]
-    lo = box[1 : 1 + rows_c, :]
-    pp = _roll(hi, -2)
-    np_ = _roll(hi, r - 1)
-    nn = _roll(lo, r - 1)
-    pn = _roll(lo, -2)
-    inv = 1.0 / float(r * r)
-    circ3 = jnp.minimum(jnp.minimum(pp, nn), jnp.minimum(-pn, -np_)) * inv
-    circ = circ3[1 : blk + 1, :]
+    def inside(v, n, lo, hi, t):
+        return (jnp.clip(v + lo, 0, n - 1) < t) & (t <= jnp.clip(v + hi, 0, n - 1))
 
-    # local max (4-neighbor, <=) over the 3-row band
+    quad = {}
+    for sy in (1, -1):
+        rlo, rhi = spans[sy]
+        for sx in (1, -1):
+            clo, chi = spans[sx]
+            acc = jnp.zeros((TH, TW), jnp.float32)
+            for a in range(rlo + 1, rhi + 1):
+                row_ok = inside(ys, h, rlo, rhi, ys + a)
+                for b in range(clo + 1, chi + 1):
+                    col_ok = inside(xs, w, clo, chi, xs + b)
+                    t = _at(g_ref, ys, xs, a, b, h, w)
+                    acc = acc + jnp.where(row_ok[:, None] & col_ok[None, :],
+                                          t, 0.0)
+            quad[sy, sx] = acc
+    circ = jnp.minimum(
+        jnp.minimum(quad[1, 1], quad[-1, -1]),
+        jnp.minimum(-quad[1, -1], -quad[-1, 1]),
+    ) / float(r * r)
+    _store(circ_ref, circ)
+
+
+def _response_kernel(th_ref, circ_ref, c0_ref, c1_ref, c2_ref, ms_ref,
+                     m0_ref, m1_ref, m2_ref, *, taps, h: int, w: int):
+    """Masked score and disc mean colour (ops/blob.blob_response)."""
+    ys, xs = _rows_cols()
+    circ = _at(circ_ref, ys, xs, 0, 0, h, w)
     lmax = (
-        (_roll(circ, 1) <= circ)
-        & (_roll(circ, -1) <= circ)
-        & (circ3[0:blk, :] <= circ)
-        & (circ3[2 : blk + 2, :] <= circ)
+        (_at(circ_ref, ys, xs, 0, -1, h, w) <= circ)
+        & (_at(circ_ref, ys, xs, 0, 1, h, w) <= circ)
+        & (_at(circ_ref, ys, xs, -1, 0, h, w) <= circ)
+        & (_at(circ_ref, ys, xs, 1, 0, h, w) <= circ)
     )
-
-    # ---- disc colour statistics at the output rows ----
-    # spans: tuple of (hw, dys) groups — one lane-span width per group,
-    # reused for every dy offset that shares it
-    ssum = None
-    for ci_, c in enumerate(cs):
-        for sq in (False, True):
-            x = c * c if sq else c
-            w_by_hw = {}
-            prev_hw, span = 0, x
-            for hw, _dys in spans:
-                for b in range(prev_hw + 1, hw + 1):
-                    span = span + _roll(x, -b) + _roll(x, b)
-                prev_hw = hw
-                w_by_hw[hw] = span
-            s = None
-            for hw, dys in spans:
-                sp = w_by_hw[hw]
-                for dy in dys:
-                    part = sp[pad + dy : pad + dy + blk, :]
-                    s = part if s is None else s + part
-            if ssum is None:
-                ssum = []
-            ssum.append(s)
-
-    n_f = float(n_taps)
+    inv_n = 1.0 / float(len(taps))
     std_sum = None
-    means = []
-    for ci_ in range(3):
-        s1 = ssum[2 * ci_]
-        s2 = ssum[2 * ci_ + 1]
-        mean = s1 * (1.0 / n_f)
-        var = jnp.maximum(s2 * (1.0 / n_f) - mean * mean, 0.0)
-        sd = jnp.sqrt(var)
+    for ref, mean_ref in ((c0_ref, m0_ref), (c1_ref, m1_ref),
+                          (c2_ref, m2_ref)):
+        # taps summed relative to the centre pixel: E[d^2] - E[d]^2 then
+        # cancels small numbers instead of squares of up to 255^2, which
+        # keeps near-uniform discs' stddev accurate in f32
+        center = _at(ref, ys, xs, 0, 0, h, w)
+        s1 = s2 = jnp.zeros((TH, TW), jnp.float32)
+        for dy, dx in taps:
+            d = _at(ref, ys, xs, dy, dx, h, w) - center
+            s1 = s1 + d
+            s2 = s2 + d * d
+        m = s1 * inv_n
+        sd = jnp.sqrt(jnp.maximum(s2 * inv_n - m * m, 0.0))
         std_sum = sd if std_sum is None else std_sum + sd
-        means.append(mean)
-
+        _store(mean_ref, center + m)
     score = circ / jnp.maximum(std_sum, 1e-12)
-    mask = (circ >= th) & lmax
-    ms_ref[:, :] = jnp.where(mask, score, -jnp.inf)
-    circ_ref[:, :] = circ
-    m0_ref[:, :] = means[0]
-    m1_ref[:, :] = means[1]
-    m2_ref[:, :] = means[2]
+    keep = (circ >= plt.load(th_ref.at[0])) & lmax
+    _store(ms_ref, jnp.where(keep, score, -jnp.inf))
+
+
+def _call(kernel, out_hw, n_out: int, interpret: bool, name: str):
+    """pallas_call over whole tiles covering ``out_hw``; the outputs keep
+    that tile padding (callers slice)."""
+    grid = (pl.cdiv(out_hw[0], TH), pl.cdiv(out_hw[1], TW))
+    return pl.pallas_call(
+        kernel,
+        grid=grid,
+        out_shape=[jax.ShapeDtypeStruct((grid[0] * TH, grid[1] * TW),
+                                        jnp.float32)] * n_out,
+        backend="triton",
+        compiler_params=plt.CompilerParams(num_warps=NUM_WARPS),
+        interpret=interpret,
+        name=name,
+    )
 
 
 @functools.partial(
-    jax.jit, static_argnames=("grad_offset", "sat_radius", "disc_radius")
+    jax.jit,
+    static_argnames=("grad_offset", "sat_radius", "disc_radius", "interpret"),
 )
 def blob_response_fused(flat, circ_threshold, grad_offset: int,
-                        sat_radius: int, disc_radius: int):
+                        sat_radius: int, disc_radius: int,
+                        interpret: bool = False):
     """flat (H, W, 3) -> (masked_score, circ, (mean0, mean1, mean2), count).
 
-    The fused form of ops/blob.blob_response: one band pass produces the
-    score-first extraction inputs. Same tolerance contract as
-    circularity_fused (interior f32-reassociation parity; border band
-    follows the replicate-at-flat edge policy).
+    The kernel form of ops/blob.py's gradient_dot + summed_area_table +
+    circularity + blob_response (see the module docstring for the
+    tolerance contract). ``interpret`` runs the kernels in the Pallas
+    interpreter (CPU tests).
     """
-    import numpy as np
-
-    o, r, dr = int(grad_offset), int(sat_radius), int(disc_radius)
-    assert r >= 2 and dr <= o + r + 1, "caller gates on kernel_fits"
-    h, w = flat.shape[:2]
-    pad_y = o + r + 1
-    pad_x = max(o + 2 * r + 4, dr + 2)
-    hp = _pad_to(h, BLK)
-    fp = jnp.pad(
-        flat,
-        ((pad_y, pad_y + (hp - h)), (pad_x, pad_x), (0, 0)),
-        mode="edge",
-    )
-    wp = _pad_to(fp.shape[1], LAN)
-    fp = jnp.pad(fp, ((0, 0), (0, wp - fp.shape[1]), (0, 0)), mode="edge")
-    hp_in = fp.shape[0]
-    chans = [fp[:, :, c] for c in range(3)]
-
     from .blob import disc_offsets
 
-    offs = disc_offsets(dr)
-    n_taps = len(offs)
-    by_hw: dict = {}
-    for dy in range(-dr, dr + 1):
-        hw = int(np.max(offs[offs[:, 0] == dy, 1]))
-        by_hw.setdefault(hw, []).append(dy)
-    spans = tuple(sorted((hw, tuple(dys)) for hw, dys in by_hw.items()))
-
-    outs = pl.pallas_call(
-        functools.partial(_response_kernel, o=o, r=r, dr=dr, blk=BLK,
-                          spans=spans, n_taps=n_taps),
-        grid_spec=pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=1,
-            grid=(hp // BLK,),
-            in_specs=[
-                pl.BlockSpec((hp_in, wp), lambda i, th: (0, 0)),
-                pl.BlockSpec((hp_in, wp), lambda i, th: (0, 0)),
-                pl.BlockSpec((hp_in, wp), lambda i, th: (0, 0)),
-            ],
-            out_specs=[
-                pl.BlockSpec((BLK, wp), lambda i, th: (i, 0))
-                for _ in range(5)
-            ],
-        ),
-        out_shape=[jax.ShapeDtypeStruct((hp, wp), jnp.float32)
-                   for _ in range(5)],
-        interpret=jax.default_backend() != "tpu",
-    )(jnp.asarray(circ_threshold, jnp.float32).reshape(1), *chans)
-    ms, circ, m0, m1, m2 = outs
-    sl = (slice(0, h), slice(pad_x, pad_x + w))
-    ms = ms[sl]
-    count = jnp.sum(ms > -jnp.inf, dtype=jnp.int32)
-    return ms, circ[sl], (m0[sl], m1[sl], m2[sl]), count
-
-
-def response_kernel_fits(grad_offset: int, sat_radius: int,
-                         disc_radius: int) -> bool:
-    return sat_radius >= 2 and disc_radius <= grad_offset + sat_radius + 1
-
-
-@functools.partial(jax.jit, static_argnames=("grad_offset", "sat_radius"))
-def circularity_fused(flat: jnp.ndarray, grad_offset: int, sat_radius: int):
-    """flat (H, W, 3) f32 -> circularity (H, W), fused band kernel.
-
-    Matches ops/blob.gradient_dot + summed_area_table + circularity up to
-    f32 reassociation (see module docstring).
-    """
     o, r = int(grad_offset), int(sat_radius)
-    if r < 2:
-        from . import blob as B
-
-        return B.circularity(B.summed_area_table(
-            B.gradient_dot(flat, o)), r)
     h, w = flat.shape[:2]
-    pad_y = o + r
-    pad_x = o + 2 * r + 2  # lane-roll wrap containment margin
-    hp = _pad_to(h, BLK)
-    # edge replication = the XLA chain's clamp-to-edge pads
-    fp = jnp.pad(
-        flat,
-        ((pad_y, pad_y + (hp - h)), (pad_x, pad_x), (0, 0)),
-        mode="edge",
-    )
-    wp = _pad_to(fp.shape[1], LAN)
-    fp = jnp.pad(fp, ((0, 0), (0, wp - fp.shape[1]), (0, 0)), mode="edge")
-    hp_in = fp.shape[0]
-    chans = [fp[:, :, c] for c in range(3)]
-
-    out = pl.pallas_call(
-        functools.partial(_kernel, o=o, r=r, blk=BLK),
-        grid=(hp // BLK,),
-        in_specs=[
-            pl.BlockSpec((hp_in, wp), lambda i: (0, 0)),
-            pl.BlockSpec((hp_in, wp), lambda i: (0, 0)),
-            pl.BlockSpec((hp_in, wp), lambda i: (0, 0)),
-        ],
-        out_specs=pl.BlockSpec((BLK, wp), lambda i: (i, 0)),
-        out_shape=jax.ShapeDtypeStruct((hp, wp), jnp.float32),
-        interpret=jax.default_backend() != "tpu",
+    chans = [flat[:, :, c] for c in range(3)]
+    (g,) = _call(
+        functools.partial(_grad_kernel, o=o, h=h, w=w),
+        (h, w), 1, interpret, "blob_grad",
     )(*chans)
-    return out[:h, pad_x : pad_x + w]
+    (circ,) = _call(
+        functools.partial(_circ_kernel, r=r, h=h, w=w),
+        (h, w), 1, interpret, "blob_circ",
+    )(g)
+    taps = tuple(map(tuple, np.asarray(disc_offsets(int(disc_radius)))))
+    ms, m0, m1, m2 = _call(
+        functools.partial(_response_kernel, taps=taps, h=h, w=w),
+        (h, w), 4, interpret, "blob_response",
+    )(jnp.asarray(circ_threshold, jnp.float32).reshape(1), circ, *chans)
+    ms, circ, m0, m1, m2 = (x[:h, :w] for x in (ms, circ, m0, m1, m2))
+    count = jnp.sum(ms > -jnp.inf, dtype=jnp.int32)
+    return ms, circ, (m0, m1, m2), count

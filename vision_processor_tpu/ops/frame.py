@@ -1,11 +1,11 @@
 """Frame-plane ops: Bayer splitting, plane sampling, reprojection to the flat
 field grid, dRGB conversion.
 
-TPU-first equivalents of the reference's raw2quad / resampling / quad2rgba
+Array-program equivalents of the reference's raw2quad / resampling / quad2rgba
 OpenCL kernels (reference kernel/raw2quad.cl:21-39, kernel/resampling.cl:52-105,
 kernel/quad2rgba.cl:23-53). Bayer splitting is pure strided slicing (free under
 XLA fusion); reprojection computes the camera projection per output pixel as
-elementwise VPU math from packed camera parameters and bilinearly gathers the
+elementwise math from packed camera parameters and bilinearly gathers the
 four half-resolution Bayer planes.
 """
 from __future__ import annotations
@@ -26,8 +26,7 @@ def raw2planes_packed(raw: jnp.ndarray, fmt: str) -> jnp.ndarray:
 
     Bayer input (2H, 2W) uint8 -> (H, W, 4) with the Bayer cell unrolled
     row-major into the minor dimension. This is a pure reshape + transpose
-    (one efficient relayout on TPU) instead of four stride-2 slices, which
-    each force a pathological strided regather. BGR input (H, W, 3) ->
+    (one relayout) instead of four stride-2 slices. BGR input (H, W, 3) ->
     (H, W, 4) zero-padded.
     """
     if fmt == BGR:
@@ -167,11 +166,9 @@ def corner_stack(packed: jnp.ndarray) -> jnp.ndarray:
     """(H, W, 4) planes -> (H, W, 16) uint8 with the 2x2 bilinear corner
     neighborhood pre-stacked into lanes ([self, right, down, down-right],
     clamp-to-edge). One cheap streaming pass per frame; it turns bilinear
-    sampling into a single gather. TPU gather cost is proportional to the
-    bytes fetched per index (measured: u8 rows gather ~2.4x faster than
-    bf16, ~8x faster than f32), and uint8 is exact for 8-bit camera data —
-    the framework contract is 8-bit sensor input (reference PixelFormat,
-    src/opencl.h:30-56)."""
+    sampling into a single gather of 16-byte rows, and uint8 is exact for
+    8-bit camera data — the framework contract is 8-bit sensor input
+    (reference PixelFormat, src/opencl.h:30-56)."""
     p = packed.astype(jnp.uint8)
     right = jnp.concatenate([p[:, 1:], p[:, -1:]], axis=1)
     down = jnp.concatenate([p[1:], p[-1:]], axis=0)
@@ -264,7 +261,7 @@ def resample_grid(
     pixel per frame) depends only on calibration, bot height and the grid,
     none of which change frame to frame. Computing it once per calibration
     change and replaying the cached gather indices + bilinear weight bases
-    removes ~1 ms/camera from every frame.
+    takes the projection out of every frame.
 
     Returns {"idx": (Hf, Wf) i32 flat index into the (H*W, 16) corner
     stack, "ub"/"vb": (Hf, Wf) f32 fractional offsets u - x0 / v - y0}.
@@ -321,8 +318,7 @@ def corner_stack_u32(raw: jnp.ndarray, fmt: str) -> jnp.ndarray:
     row-major cell order on this little-endian target), so the three
     neighbor shifts and the 4-way stack move 4x fewer lanes, and the final
     u32[4] -> u8[16] bitcast replaces the pathological u8 minor-dim
-    concats. Measured ~5x faster than the u8 build (0.2 vs 1.2 ms/frame at
-    1080p), byte-identical output (tests assert equality)."""
+    concats; byte-identical output (tests assert equality)."""
     if fmt == BGR:
         p8 = jnp.concatenate(
             [raw.astype(jnp.uint8), jnp.zeros_like(raw[..., :1], dtype=jnp.uint8)],

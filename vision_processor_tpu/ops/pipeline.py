@@ -20,20 +20,11 @@ import numpy as np
 from ..models.perspective import Perspective
 from . import blob as B
 from . import frame as F
+from .blob_pallas import blob_response_fused
+from .platform import use_gpu_kernels
 
 _resample_grid_jit = jax.jit(
     F.resample_grid, static_argnames=("out_shape", "plane_shape")
-)
-
-
-def _warp_grid_impl(*args, **kwargs):
-    from . import warp as W
-
-    return W.warp_grid(*args, **kwargs)
-
-
-_warp_grid_jit = jax.jit(
-    _warp_grid_impl, static_argnames=("out_shape", "plane_shape", "fmt")
 )
 
 
@@ -54,10 +45,6 @@ class BlobMachineConfig:
     # exact per-plane quarter-pixel bilinear (16 gathers) vs the packed
     # single-cell sampler (4 gathers, <=0.25 px boundary approximation)
     exact_resample: bool = False
-    # "gather": cached-grid XLA gather (bit-exact with the uncached path);
-    # "warp": two-pass separable Pallas warp (ops/warp.py) — ~3x faster,
-    # sub-pixel-equivalent; requires ops.warp.warp_fits on the geometry
-    resample_mode: str = "gather"
 
     @property
     def plane_shape(self) -> tuple[int, int]:
@@ -74,16 +61,6 @@ class BlobMachineConfig:
         Call once per calibration / bot-height change and pass the result to
         ``blob_machine(..., rs_grid=...)``.
         """
-        if self.resample_mode == "warp":
-            return _warp_grid_jit(
-                jnp.asarray(packed_cam, dtype=jnp.float32),
-                jnp.float32(max_bot_height),
-                self.field_scale if field_scale is None else field_scale,
-                self.field_offset if field_offset is None else field_offset,
-                out_shape=self.flat_shape,
-                plane_shape=self.plane_shape,
-                fmt=self.fmt,
-            )
         return _resample_grid_jit(
             jnp.asarray(packed_cam, dtype=jnp.float32),
             jnp.float32(max_bot_height),
@@ -101,7 +78,6 @@ class BlobMachineConfig:
         raw_shape: tuple[int, ...],
         max_blobs: int = 2000,
         debug_images: bool = False,
-        resample_mode: str = "gather",
     ) -> "BlobMachineConfig":
         hf = int(perspective.reprojected_field_size[1])
         wf = int(perspective.reprojected_field_size[0])
@@ -125,7 +101,6 @@ class BlobMachineConfig:
             ),
             max_blobs=max_blobs,
             debug_images=debug_images,
-            resample_mode=resample_mode,
         )
 
 
@@ -162,12 +137,6 @@ def blob_machine(
             cfg.flat_shape,
             cfg.fmt,
         )
-    elif rs_grid is not None and "pos1" in rs_grid:
-        from . import warp as W
-
-        flat = W.resample_flat_warp(
-            raw, rs_grid, cfg.fmt, cfg.flat_shape, cfg.plane_shape
-        )
     elif rs_grid is not None:
         flat = F.resample_flat_grid_raw(raw, rs_grid, cfg.fmt)
     else:
@@ -183,25 +152,15 @@ def blob_machine(
         )
     import os
 
-    from .blob_pallas import (
-        blob_response_fused,
-        circularity_fused,
-        response_kernel_fits,
-        use_fused_circ,
-    )
-
     score_first = os.environ.get("VPTPU_SCOREFIRST", "1") != "0"
-    fits = response_kernel_fits(
-        cfg.grad_offset, cfg.sat_radius, cfg.disc_radius
-    )
     if score_first and not cfg.debug_images:
         # score-first extraction: the per-pixel response (masked score +
-        # disc mean color) is computed map-wide — fused band kernel on
-        # TPU, span sums elsewhere — and compaction selects directly by
+        # disc mean color) is computed map-wide — stencil kernels on the
+        # GPU, span sums on the CPU — and compaction selects directly by
         # score, eliminating the candidate-local disc gathers and the
         # second ordering pass (the reference also scores every
         # surviving pixel, kernel/blobList.cl:48-94)
-        if use_fused_circ() and fits:
+        if use_gpu_kernels():
             ms, circ, mean, count = blob_response_fused(
                 flat, circ_threshold, cfg.grad_offset, cfg.sat_radius,
                 cfg.disc_radius,
@@ -218,15 +177,9 @@ def blob_machine(
             flat, circ, ms, mean, count, max_blobs=cfg.max_blobs
         )
     else:
-        if use_fused_circ() and cfg.sat_radius >= 2 and not cfg.debug_images:
-            # fused Pallas band kernel (grad+box+circ in one VMEM pass);
-            # interior-identical to the XLA chain up to f32 reassociation,
-            # border band differs (ops/blob_pallas.py docstring)
-            circ = circularity_fused(flat, cfg.grad_offset, cfg.sat_radius)
-        else:
-            grad = B.gradient_dot(flat, cfg.grad_offset)
-            sat = B.summed_area_table(grad)
-            circ = B.circularity(sat, cfg.sat_radius)
+        grad = B.gradient_dot(flat, cfg.grad_offset)
+        sat = B.summed_area_table(grad)
+        circ = B.circularity(sat, cfg.sat_radius)
         blobs = B.extract_blobs(
             flat,
             circ,

@@ -1,21 +1,18 @@
-"""Masked row top-m selections as Pallas kernels.
+"""Masked row top-m selections: a Pallas kernel (Triton route) and XLA.
 
-Two selection patterns dominate the post-map device cost:
+Two selection patterns follow the blob map:
 
-* blob compaction: per-row top-m over the masked circularity map
-  (ops/blob.py extract_blobs) — XLA lowers ``lax.top_k`` to a per-row
-  sort network over the full lane axis;
+* blob compaction: per-row top-m over the masked score map
+  (ops/blob.py _compact_masked), which is ``lax.top_k`` over a map that
+  exists anyway;
 * neighbour-ring / tracked-candidate selection: top-m by rank or by
-  distance over the blob axis per query (models/detector.py), where the
-  (queries, blobs) score map is first materialized in HBM and then
-  reduced with m argmax passes that re-read it every pass.
+  distance over the blob axis per query (models/detector.py). The XLA
+  form materializes the (queries, blobs) score map and rewrites it in
+  each of the m argmax passes, because each pass depends on the last.
 
-Both are "read a row once, keep the best m" problems. The kernels here
-do exactly that: one HBM read of the operand, an in-VMEM iterative
-select (m passes over registers), and a (rows, 128) output tile whose
-first m lanes carry the results. ``query_select_topk`` additionally
-computes the query↔blob distances inside the kernel, so the score map
-never exists in memory at all.
+``query_select_topk``'s kernel keeps a block of query rows in registers,
+computes the query<->blob distances there, and runs the m passes without
+writing the map.
 
 Semantics are EXACTLY ``lax.top_k`` on the masked score rows for slots
 holding real values — descending values, ties broken toward the lower
@@ -23,163 +20,119 @@ index — with the iter_top_k caveat on exhausted slots (indices repeat
 the first all-masked lane instead of staying distinct; validity MUST be
 derived from the returned values, see models/detector.py iter_top_k).
 
-On non-TPU backends every entry point falls back to the pure-XLA
-formulation (bit-identical results), so CPU tests and the virtual-mesh
-dryrun exercise the same numerics without Mosaic.
-
 The reference has no analogue — its blob list is an atomic append
 (reference kernel/blobList.cl:87-91) and its neighbour search a k-d tree
-(reference src/blobs/kdtree.cpp:18-37); these kernels are the TPU-shaped
-replacement for both.
+(reference src/blobs/kdtree.cpp:18-37).
 """
 from __future__ import annotations
 
 import functools
-import os
 
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
+from jax.experimental.pallas import triton as plt
 
-BLK = 8    # query/row block (f32 sublane tile)
-LAN = 128  # lane tile
+from .platform import use_gpu_kernels
 
-
-def _pad_to(n: int, m: int) -> int:
-    return ((n + m - 1) // m) * m
-
-
-def _use_pallas() -> bool:
-    # QUERY-SELECT gate, default ON (TPU): like row_topk, the round-3
-    # "loses ~0.1 ms" verdict was a BLK=8 artifact (64 block dispatches
-    # for the A=512 ring window). At the shared 64-row block the fused
-    # kernel beats XLA's materialized-map argmax passes at the dense
-    # ring window — 0.01-0.04 vs 0.05-0.12 ms
-    # (experiments/ring_select_ab.py re-run after the re-block) — and is
-    # noise-level at the tiny tracked window. VPTPU_PALLAS_TOPK=0
-    # restores the XLA formulation (every non-TPU backend keeps it).
-    return (
-        os.environ.get("VPTPU_PALLAS_TOPK", "1") != "0"
-        and jax.default_backend() == "tpu"
-    )
+QBLK = 4        # query rows per block: a (4, 2048) f32 tile spreads to 32
+NUM_WARPS = 8   # registers a thread over 8 warps
 
 
-def _use_pallas_rows() -> bool:
-    # ROW-STAGE gate, default ON (TPU): the round-3 "Pallas topk loses"
-    # verdict was measured at BLK=8, where 54-120 block dispatches
-    # dominate. At BLK=64 the in-VMEM row select is ~free — 0.00-0.06 ms
-    # vs XLA's sort-lowered 0.10-0.19 ms per camera at every production
-    # shape (432x770/540x962, m=6/16/19 — experiments/rowtopk_blk.py)
-    # — and bit-equal to lax.top_k.
-    # This single op was the largest item in the dense frame-set trace
-    # (0.155 ms x 4 cameras, experiments/dense_trace.py).
-    # VPTPU_PALLAS_ROWTOPK=0 restores the sort-lowered XLA path.
-    return (
-        os.environ.get("VPTPU_PALLAS_ROWTOPK", "1") != "0"
-        and jax.default_backend() == "tpu"
-    )
-
-
-def _select_m(cur, m: int):
-    """m iterative (max, lowest-index) passes over ``cur`` (rows, L).
-
-    Returns (rows, 128) value/index tiles with results in lanes [0, m).
-    """
-    rows, l = cur.shape
-    iota = jax.lax.broadcasted_iota(jnp.int32, (rows, l), 1)
-    col = jax.lax.broadcasted_iota(jnp.int32, (rows, LAN), 1)
-    vals = jnp.full((rows, LAN), -jnp.inf, jnp.float32)
-    idxs = jnp.zeros((rows, LAN), jnp.int32)
+def _select_m(cur, m: int, mp: int):
+    """m (max, lowest-index) passes over ``cur`` (rows, K); results in the
+    first m columns of (rows, mp) value/index tiles."""
+    rows, k = cur.shape
+    iota = jax.lax.broadcasted_iota(jnp.int32, (rows, k), 1)
+    col = jax.lax.broadcasted_iota(jnp.int32, (rows, mp), 1)
+    vals = jnp.full((rows, mp), -jnp.inf, jnp.float32)
+    idxs = jnp.zeros((rows, mp), jnp.int32)
     for j in range(m):
-        v = jnp.max(cur, axis=1, keepdims=True)  # (rows, 1)
-        i = jnp.min(
-            jnp.where(cur == v, iota, l), axis=1, keepdims=True
-        ).astype(jnp.int32)
+        v = jnp.max(cur, axis=1, keepdims=True)
+        i = jnp.min(jnp.where(cur == v, iota, k), axis=1, keepdims=True)
         vals = jnp.where(col == j, v, vals)
         idxs = jnp.where(col == j, i, idxs)
         cur = jnp.where(iota == i, -jnp.inf, cur)
     return vals, idxs
 
 
-# ---------------------------------------------------------------------------
-# row top-m over a precomputed (masked) score map
-# ---------------------------------------------------------------------------
-
-
-def _row_topk_kernel(x_ref, vals_ref, idx_ref, *, m: int):
-    vals, idxs = _select_m(x_ref[:], m)
-    vals_ref[:] = vals
-    idx_ref[:] = idxs
-
-
-ROW_BLK = 64  # rows per block: amortizes block dispatch (BLK=8 was the
-              # reason the round-3 measurement had this kernel losing)
-
-
-def row_topk(x: jnp.ndarray, m: int, interpret: bool = False):
-    """Top-m of each row of ``x`` (R, L) f32: (values, indices), both (R, m).
-
-    Drop-in for ``jax.lax.top_k(x, m)`` (see module docstring for the
-    exhausted-row index caveat — identical to iter_top_k's).
-    ``interpret`` forces the Pallas interpreter (kernel-logic tests off-TPU).
-    """
-    if not interpret and not _use_pallas_rows():
-        return jax.lax.top_k(x, m)
-    if m > LAN:
-        # the kernel's output tile is one LAN-lane block (_select_m writes
-        # lanes [0, m)); a wider m — e.g. _compact_masked's stage(m) on a
-        # short flat field — would silently drop winners past lane LAN-1
-        return jax.lax.top_k(x, m)
-    r, l = x.shape
-    blk = ROW_BLK if not interpret else BLK
-    rp, lp = _pad_to(max(r, 1), blk), _pad_to(max(l, LAN), LAN)
-    xp = jnp.pad(
-        x.astype(jnp.float32), ((0, rp - r), (0, lp - l)),
-        constant_values=-jnp.inf,
-    )
-    vals, idxs = pl.pallas_call(
-        functools.partial(_row_topk_kernel, m=m),
-        grid=(rp // blk,),
-        interpret=interpret,
-        in_specs=[pl.BlockSpec((blk, lp), lambda rb: (rb, 0))],
-        out_specs=[
-            pl.BlockSpec((blk, LAN), lambda rb: (rb, 0)),
-            pl.BlockSpec((blk, LAN), lambda rb: (rb, 0)),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((rp, LAN), jnp.float32),
-            jax.ShapeDtypeStruct((rp, LAN), jnp.int32),
-        ],
-    )(xp)
-    return vals[:r, :m], idxs[:r, :m]
-
-
-# ---------------------------------------------------------------------------
-# fused query->blob selection (distance test + rank/-d2 top-m in VMEM)
-# ---------------------------------------------------------------------------
-
-
-def _query_topk_kernel(q_ref, b_ref, vals_ref, idx_ref, *, m: int,
-                       by_rank: bool):
-    qx = q_ref[:, 0:1]
-    qy = q_ref[:, 1:2]
-    r2 = q_ref[:, 2:3]
-    bx = b_ref[0:1, :]
-    by = b_ref[1:2, :]
-    rank = b_ref[2:3, :]
-    dx = bx - qx
-    dy = by - qy
+def _query_topk_kernel(qx_ref, qy_ref, r2_ref, bx_ref, by_ref, rank_ref,
+                       vals_ref, idx_ref, *, m: int, by_rank: bool):
+    qx = qx_ref[...][:, None]
+    qy = qy_ref[...][:, None]
+    r2 = r2_ref[...][:, None]
+    rank = rank_ref[...][None, :]
+    dx = bx_ref[...][None, :] - qx
+    dy = by_ref[...][None, :] - qy
     d2 = dx * dx + dy * dy
     ok = (d2 <= r2) & (rank < jnp.inf)
-    score = jnp.where(ok, -rank if by_rank else -d2, -jnp.inf)
-    vals, idxs = _select_m(score, m)
-    vals_ref[:] = vals
-    idx_ref[:] = idxs
+    cur = jnp.where(ok, -rank if by_rank else -d2, -jnp.inf)
+
+    vals, idxs = _select_m(cur, m, vals_ref.shape[1])
+    vals_ref[...] = vals
+    idx_ref[...] = idxs
+
+
+def _query_select_kernel(query_xy, radius2, blob_xy, rank, m: int,
+                         by_rank: bool, interpret: bool):
+    q, k = query_xy.shape[0], blob_xy.shape[0]
+    qp = pl.cdiv(max(q, 1), QBLK) * QBLK
+    kp = pl.next_power_of_2(max(k, 16))
+    mp = pl.next_power_of_2(max(m, 16))
+
+    def padq(v):
+        # padded queries keep radius2 == 0 and are sliced off below
+        return jnp.pad(v.astype(jnp.float32), (0, qp - q))
+
+    def padk(v, fill):
+        return jnp.pad(v.astype(jnp.float32), (0, kp - k),
+                       constant_values=fill)
+
+    qspec = pl.BlockSpec((QBLK,), lambda i: (i,))
+    kspec = pl.BlockSpec((kp,), lambda i: (0,))
+    ospec = pl.BlockSpec((QBLK, mp), lambda i: (i, 0))
+    vals, idxs = pl.pallas_call(
+        functools.partial(_query_topk_kernel, m=m, by_rank=by_rank),
+        grid=(qp // QBLK,),
+        in_specs=[qspec] * 3 + [kspec] * 3,
+        out_specs=[ospec, ospec],
+        out_shape=[
+            jax.ShapeDtypeStruct((qp, mp), jnp.float32),
+            jax.ShapeDtypeStruct((qp, mp), jnp.int32),
+        ],
+        backend="triton",
+        compiler_params=plt.CompilerParams(num_warps=NUM_WARPS),
+        interpret=interpret,
+        name="query_select_topk",
+    )(padq(query_xy[:, 0]), padq(query_xy[:, 1]), padq(radius2),
+      padk(blob_xy[:, 0], 0.0), padk(blob_xy[:, 1], 0.0),
+      padk(rank, jnp.inf))
+    return vals[:q, :m], idxs[:q, :m]
+
+
+def _query_select_xla(query_xy, radius2, blob_xy, rank, m: int,
+                      by_rank: bool):
+    """The plain formulation: materialized (Q, K) score map, m argmax
+    passes (exact; ties to the lower index)."""
+    k = blob_xy.shape[0]
+    diff = blob_xy[None, :, :] - query_xy[:, None, :]
+    d2 = jnp.sum(diff * diff, axis=-1)
+    ok = (d2 <= radius2[:, None]) & (rank[None, :] < jnp.inf)
+    score = jnp.where(ok, -rank[None, :] if by_rank else -d2, -jnp.inf)
+    vals, idxs = [], []
+    cur = score
+    iota = jnp.arange(k)
+    for _ in range(m):
+        i = jnp.argmax(cur, axis=-1)
+        v = jnp.take_along_axis(cur, i[..., None], axis=-1)[..., 0]
+        vals.append(v)
+        idxs.append(i.astype(jnp.int32))
+        cur = jnp.where(iota == i[..., None], -jnp.inf, cur)
+    return jnp.stack(vals, axis=-1), jnp.stack(idxs, axis=-1)
 
 
 def query_select_topk(query_xy, radius2, blob_xy, rank, m: int,
-                      by_rank: bool, interpret: bool = False,
-                      force_pallas: bool = False):
+                      by_rank: bool, interpret: bool = False):
     """Per query: top-m blobs within radius, best-ranked or nearest first.
 
     query_xy (Q, 2), radius2 (Q,) squared search radii, blob_xy (K, 2),
@@ -187,56 +140,10 @@ def query_select_topk(query_xy, radius2, blob_xy, rank, m: int,
     -rank (lowest rank wins), otherwise -d2 (nearest wins). Returns
     (scores (Q, m), indices (Q, m)); validity is score > -inf.
 
-    Fuses the (Q, K) distance/score map into the selection kernel — the
-    XLA fallback materializes it exactly like the previous inline code.
+    The kernel runs on the GPU (and in the Pallas interpreter with
+    ``interpret``); the CPU runs the XLA formulation.
     """
-    q, k = query_xy.shape[0], blob_xy.shape[0]
-    if not interpret and not force_pallas and not _use_pallas():
-        diff = blob_xy[None, :, :] - query_xy[:, None, :]
-        d2 = jnp.sum(diff * diff, axis=-1)
-        ok = (d2 <= radius2[:, None]) & (rank[None, :] < jnp.inf)
-        score = jnp.where(ok, -rank[None, :] if by_rank else -d2, -jnp.inf)
-        # iterative top-m (exact; ties to the lower index) — identical
-        # result to the kernel, avoids a sort over the blob axis
-        vals, idxs = [], []
-        cur = score
-        iota = jnp.arange(k)
-        for _ in range(m):
-            i = jnp.argmax(cur, axis=-1)
-            v = jnp.take_along_axis(cur, i[..., None], axis=-1)[..., 0]
-            vals.append(v)
-            idxs.append(i.astype(jnp.int32))
-            cur = jnp.where(iota == i[..., None], -jnp.inf, cur)
-        return jnp.stack(vals, axis=-1), jnp.stack(idxs, axis=-1)
-
-    qblk = ROW_BLK if not interpret else BLK
-    qp = _pad_to(max(q, 1), qblk)
-    kp = _pad_to(max(k, 1), LAN)
-    qpack = jnp.zeros((qp, LAN), jnp.float32)
-    qpack = qpack.at[:q, 0].set(query_xy[:, 0])
-    qpack = qpack.at[:q, 1].set(query_xy[:, 1])
-    # padded queries keep radius2 == 0; a real blob exactly at the origin
-    # could "match" (d2 == 0 <= 0), but padded rows are sliced off below
-    qpack = qpack.at[:q, 2].set(radius2)
-    bpack = jnp.full((qblk, kp), jnp.inf, jnp.float32)
-    bpack = bpack.at[0, :k].set(blob_xy[:, 0])
-    bpack = bpack.at[1, :k].set(blob_xy[:, 1])
-    bpack = bpack.at[2, :k].set(rank)  # padded lanes stay rank=+inf
-    vals, idxs = pl.pallas_call(
-        functools.partial(_query_topk_kernel, m=m, by_rank=by_rank),
-        grid=(qp // qblk,),
-        interpret=interpret,
-        in_specs=[
-            pl.BlockSpec((qblk, LAN), lambda qb: (qb, 0)),
-            pl.BlockSpec((qblk, kp), lambda qb: (0, 0)),
-        ],
-        out_specs=[
-            pl.BlockSpec((qblk, LAN), lambda qb: (qb, 0)),
-            pl.BlockSpec((qblk, LAN), lambda qb: (qb, 0)),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((qp, LAN), jnp.float32),
-            jax.ShapeDtypeStruct((qp, LAN), jnp.int32),
-        ],
-    )(qpack, bpack)
-    return vals[:q, :m], idxs[:q, :m]
+    if interpret or use_gpu_kernels():
+        return _query_select_kernel(query_xy, radius2, blob_xy, rank, m,
+                                    by_rank, interpret)
+    return _query_select_xla(query_xy, radius2, blob_xy, rank, m, by_rank)

@@ -2,14 +2,13 @@
 
 The reference runs one OS process per camera coordinated only by UDP
 multicast packets, including cross-camera tracking input and clock sync
-(reference README architecture, src/udpsocket.cpp:204-301). The TPU-native
-formulation:
+(reference README architecture, src/udpsocket.cpp:204-301). Here:
 
-* one chip, N cameras  -> one program with the camera axis unrolled
-  (batched gathers lower ~2.5x slower than unbatched, so no vmap)
-* N chips              -> shard_map over a 1-D ``Mesh(("cam",))``; each device
-  owns its camera's frame, and the cross-camera tracking exchange is a
-  ``jax.lax.all_gather`` of compact detection summaries over ICI — the
+* one device, N cameras  -> one program with the camera axis unrolled
+  (a vmapped camera axis has not been measured on the GPU)
+* N devices              -> shard_map over a 1-D ``Mesh(("cam",))``; each
+  device owns its camera's frame, and the cross-camera tracking exchange
+  is a ``jax.lax.all_gather`` of compact detection summaries — the
   collective replacing the multicast bus (host UDP multicast is still
   emitted for external wire compatibility).
 
@@ -100,7 +99,7 @@ def _single_cam_step(
     pieces (greedy clipping NMS, the 24-iteration guarded 2-means id
     estimate) are sequences of tiny-tensor ops, so one vmapped pass over
     the camera axis costs ~n_cams-fold fewer sequenced ops than per-camera
-    unrolled copies (measured 0.45 ms/4-cam frame-set for the ids alone).
+    unrolled copies.
     """
     blobs = blob_machine(
         cfg.bm,
@@ -249,22 +248,6 @@ def resample_grids_traced(
     """
     from ..ops import frame as F
 
-    if cfg.bm.resample_mode == "warp":
-        from ..ops import warp as W
-
-        grids = [
-            W.warp_grid(
-                packed_cams[c],
-                max_bot_height,
-                field_scales[c],
-                field_offsets[c],
-                cfg.bm.flat_shape,
-                cfg.bm.plane_shape,
-                cfg.bm.fmt,
-            )
-            for c in range(cfg.n_cams)
-        ]
-        return jax.tree.map(lambda *xs: jnp.stack(xs), *grids)
     grids = [
         F.resample_grid(
             packed_cams[c],
@@ -311,9 +294,8 @@ def batched_step(cfg: MultiCamConfig):
             prev_summaries=prev_prev_summary,
             bot_heights=params.get("bot_heights_yb"),
         )
-        # cameras are unrolled rather than vmapped: XLA lowers BATCHED
-        # gathers (the resampling + hypothesis lookups) ~2.5x slower than
-        # unbatched ones, and the per-frame gather dominates the step
+        # cameras are unrolled rather than vmapped, so each camera's
+        # gathers (the resampling + hypothesis lookups) stay unbatched
         outs = [
             _single_cam_step(
                 cfg, raws[c], packed_cams[c], field_scales[c],
@@ -407,8 +389,7 @@ def percam_core_step(cfg: MultiCamConfig):
     device, so uploads 1..n-1 and the per-camera host work hide under
     compute instead of waiting for the whole frame-set (the batched
     program exposes the full upload because every input must be resident
-    before dispatch). Measured split cost vs the batched program:
-    +0.05 ms per 4-camera frame-set (experiments/split_serial.py).
+    before dispatch).
 
     Callers slice per-camera tunables with ``params_for_cam`` first.
     """
@@ -469,9 +450,9 @@ def sharded_step(cfg: MultiCamConfig, mesh: Mesh, fused: bool = False):
     """Returns a jitted fn sharding ``cfg.n_cams`` cameras over the mesh.
 
     Each device owns ``n_cams / n_devices`` cameras (the production shape
-    for a large rig on a small pod — e.g. 8 cameras on 4 chips) and runs
-    their blob machines + hypothesis searches unrolled like the single-chip
-    batch. The detection summaries are all-gathered over ICI so every
+    for a large rig — e.g. 8 cameras on 4 GPUs) and runs their blob
+    machines + hypothesis searches unrolled like the single-device
+    batch. The detection summaries are all-gathered so every
     camera's next frame can track every robot on the field.
 
     With ``fused=True`` the in-graph finisher (models/device_finish.py)
@@ -522,7 +503,7 @@ def sharded_step(cfg: MultiCamConfig, mesh: Mesh, fused: bool = False):
                                               cam0, n_local),
             params["ball_radius"],
         )
-        # ICI collective: share this shard's detections with the fleet
+        # collective: share this shard's detections with the fleet
         gathered = jax.tree.map(
             lambda x: jax.lax.all_gather(x, CAM_AXIS), summary
         )
@@ -572,7 +553,7 @@ def sharded_rollout(cfg: MultiCamConfig, mesh: Mesh, n_frames: int):
     """Device-resident N-frame loop over the camera mesh.
 
     Each device scans its own camera's frames; after every frame the
-    detection summaries are all_gathered over ICI so the next frame's
+    detection summaries are all_gathered so the next frame's
     tracked-bot search sees the whole fleet — the sustained form of the
     reference's cross-camera tracking exchange
     (reference src/udpsocket.cpp:204-256). Returns per-frame compact
@@ -592,25 +573,13 @@ def sharded_rollout(cfg: MultiCamConfig, mesh: Mesh, n_frames: int):
         from ..ops import frame as F
 
         # frame-invariant sampling geometry, hoisted out of the scan
-        if cfg.bm.resample_mode == "warp":
-            from ..ops import warp as W
-
-            grids = [
-                W.warp_grid(
-                    packed_cam[i], params["max_bot_height"], field_scale[i],
-                    field_offset[i], cfg.bm.flat_shape, cfg.bm.plane_shape,
-                    cfg.bm.fmt,
-                )
-                for i in range(n_local)
-            ]
-        else:
-            grids = [
-                F.resample_grid(
-                    packed_cam[i], params["max_bot_height"], field_scale[i],
-                    field_offset[i], cfg.bm.flat_shape, cfg.bm.plane_shape,
-                )
-                for i in range(n_local)
-            ]
+        grids = [
+            F.resample_grid(
+                packed_cam[i], params["max_bot_height"], field_scale[i],
+                field_offset[i], cfg.bm.flat_shape, cfg.bm.plane_shape,
+            )
+            for i in range(n_local)
+        ]
 
         # params is replicated: per-camera tunables index by GLOBAL cam id
         cam0 = jax.lax.axis_index(CAM_AXIS) * n_local

@@ -76,9 +76,6 @@ class VisionConfig:
     # parity: the reference's detection scoring is geometry-only
     # (reference src/blobs/hypothesis.cpp:97-205)
     color_plausibility_veto: bool = False
-    # "auto": two-pass Pallas warp resample when the geometry admits it
-    # (ops/warp.py warp_fits), else the XLA gather; "gather"/"warp" force
-    resample_mode: str = "auto"
     # run color update / id recalc / ball filters in-graph (the host keeps
     # only protobuf assembly); the host finishing path remains available
     # for parity testing and as a fallback
@@ -230,7 +227,13 @@ class VisionConfig:
         self.clipping_tolerance = _get(th, "clipping_tolerance", 10.0)
         self.color_plausibility_veto = bool(
             _get(th, "color_plausibility_veto", False))
-        self.resample_mode = str(_get(th, "resample_mode", "auto"))
+        # resampling is the XLA gather on every platform; the key stays
+        # readable so existing configs ("auto", "gather") keep loading
+        mode = str(_get(th, "resample_mode", "auto"))
+        if mode not in ("auto", "gather"):
+            raise ValueError(
+                f"thresholds.resample_mode {mode!r}: only 'auto' and "
+                "'gather' (the same XLA gather) exist")
         # VPTPU_DEVICE_FINISH env overrides the config (ops escape hatch
         # to fall back to host finishing without touching config files)
         env_df = os.environ.get("VPTPU_DEVICE_FINISH")

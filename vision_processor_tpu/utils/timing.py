@@ -1,6 +1,6 @@
 """Profiling and tracing utilities.
 
-TPU equivalents of the reference's OpenCL event profiling + printRuntimes
+JAX equivalents of the reference's OpenCL event profiling + printRuntimes
 (reference src/opencl.cpp:94-101, src/main.cpp:363-366):
 
 * ``StageTimer``    — per-stage wall times with block_until_ready fences,
